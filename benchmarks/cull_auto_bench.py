@@ -1,12 +1,12 @@
-"""Cull on/off A/B across bundle-coherence regimes (VERDICT r3 item 2).
+"""Cull on/off A/B across bundle-coherence regimes.
 
-The conservative block x tile cull is bit-identical and measured 2.9-3.2x
-end-to-end on coherent scenes, but ships default-off. To auto-enable it
-safely the engine needs the LOSS side too: what does cull=True cost when
-the mask can't skip anything (isotropic sources)? Three regimes, each
-min-of-N device-mode traces:
+The conservative block x tile cull is bit-identical; auto (cull=None)
+turns it on for coherent bundles. This measures both sides: the gain on
+coherent scenes and what cull=True costs when the mask can't skip
+anything (isotropic sources). Three regimes, each min-of-N device-mode
+traces:
 
-  bowl       collimated bundle into the parabolic bowl (the 3x showcase)
+  bowl       collimated bundle into the parabolic bowl (most culled)
   stack      collimated bundle through the splitting lens stack + dome
   isotropic  point source inside a measure sphere (nothing cullable)
 
@@ -20,26 +20,25 @@ import time
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lpcl_jax_cache")
+    from lightpycl_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import numpy as np
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
 
     import lightpycl_tpu as L
     from lightpycl_tpu.sources import CollimatedSource, light_source
     from lightpycl_tpu.tracer.engine import Tracer
 
-    on_tpu = jax.default_backend() == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
     n_rays = int(os.environ.get("BENCH_RAYS",
-                                1 << 19 if on_tpu else 1 << 12))
-    n_meas = int(os.environ.get("N_MEAS", 5 if on_tpu else 2))
-    seg = 256 if on_tpu else 32
+                                1 << 19 if on_gpu else 1 << 12))
+    n_meas = int(os.environ.get("N_MEAS", 5 if on_gpu else 2))
+    seg = 256 if on_gpu else 32
 
     oe = L.optical_elements(n_segments=seg, n_radial=seg // 2)
-    oe_s = L.optical_elements(n_segments=128 if on_tpu else 24,
-                              n_radial=32 if on_tpu else 8)
+    oe_s = L.optical_elements(n_segments=128 if on_gpu else 24,
+                              n_radial=32 if on_gpu else 8)
 
     def bowl():
         els = [oe.parabolic_mirror(focus=1.0, diameter=4.0,

@@ -1,23 +1,15 @@
-"""Detector-accumulation epilogue A/B (VERDICT r3 item 3a).
+"""Detector-accumulation A/B: the shipped XLA scatter-add against
+jax.ops.segment_sum.
 
-SURVEY.md §3 named an in-kernel partial-histogram variant for the
-measured-power scatter ("Pallas kernel #2 (or fused epilogue of #1) ...
-scatter-added into on-chip detector histogram") that round 2/3 never
-measured against the shipped XLA scatter-add epilogue (2.0% of the bounce
-at config-4 scale, bounce_profile_v5e.jsonl). On TPU a per-lane scatter is
-not a native VPU operation either way, so the realistic contenders are:
-
-  scatter   shipped path: .at[flat].add(power) (XLA sort+segment lowering)
-  onehot    one-hot matmul: hist += P @ onehot(flat, B) on the MXU — the
-            one-hot matrix is exactly representable in bf16, but the
-            POWER side must stay f32, so precision=HIGHEST
-  segsum    jax.ops.segment_sum with num_segments=B (explicitly sorted)
+  scatter   shipped path: .at[flat].add(power) (atomics on the GPU)
+  segsum    jax.ops.segment_sum with num_segments=B
 
 Each variant computes the SAME (648-bin angular hist + per-detector
 totals) from C measured rays; timed as chained reps inside one jitted
-scan. Correctness is asserted against the scatter path to 1e-4 relative.
+scan. Each row reports its error against float64 host sums.
 
-Prints one JSON line per variant.
+Prints one JSON line per variant (full size on a GPU, a smoke size
+elsewhere).
 """
 
 import json
@@ -27,17 +19,16 @@ import time
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lpcl_jax_cache")
+    from lightpycl_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-
-    on_tpu = jax.default_backend() == "tpu"
-    C = int(os.environ.get("RAY_COUNT", 1 << 22 if on_tpu else 1 << 12))
-    reps = int(os.environ.get("REPS", 8 if on_tpu else 2))
+    on_gpu = jax.default_backend() == "gpu"
+    C = int(os.environ.get("RAY_COUNT", 1 << 22 if on_gpu else 1 << 12))
+    reps = int(os.environ.get("REPS", 8 if on_gpu else 2))
     n_az, n_pol, n_det = 36, 18, 4
     B = n_az * n_pol
 
@@ -63,33 +54,6 @@ def main():
         per = jnp.zeros((n_det,), jnp.float32).at[did].add(p)
         return hist, per
 
-    # chunked: a monolithic (C, B) one-hot is C*B*4 bytes = 10.9 GB at the
-    # 4M-ray bench size — past v5e HBM. Scan over 64k-ray chunks keeps the
-    # MXU matmul shape while the one-hot stays ~170 MB live.
-    ONEHOT_CHUNK = 1 << 16
-
-    def onehot(v, p, did):
-        flat = bins_of(v)
-        ch = min(ONEHOT_CHUNK, flat.shape[0])
-        n_ch = flat.shape[0] // ch  # bench sizes are powers of two
-
-        def body(acc, xs):
-            f_c, p_c, d_c = xs
-            oh = jax.nn.one_hot(f_c, B, dtype=jnp.float32)     # (ch, B)
-            h = jnp.matmul(p_c[None, :], oh,
-                           precision=jax.lax.Precision.HIGHEST)[0]
-            ohd = jax.nn.one_hot(d_c, n_det, dtype=jnp.float32)
-            pr = jnp.matmul(p_c[None, :], ohd,
-                            precision=jax.lax.Precision.HIGHEST)[0]
-            return (acc[0] + h, acc[1] + pr), None
-
-        (hist, per), _ = jax.lax.scan(
-            body,
-            (jnp.zeros((B,), jnp.float32), jnp.zeros((n_det,), jnp.float32)),
-            (flat.reshape(n_ch, ch), p.reshape(n_ch, ch),
-             did.reshape(n_ch, ch)))
-        return hist, per
-
     def segsum(v, p, did):
         flat = bins_of(v)
         hist = jax.ops.segment_sum(p, flat, num_segments=B)
@@ -98,9 +62,9 @@ def main():
 
     # correctness anchor: float64 host sums. Variant-vs-variant f32
     # comparison is the wrong oracle at this size — a 1M-term f32 sum's
-    # error depends on accumulation ORDER (XLA's segmented scatter vs the
-    # MXU's chunked accumulate), so two correct variants legitimately
-    # differ by ~1e-4 relative. Each row reports its own f64-relative err.
+    # error depends on accumulation ORDER, so two correct variants
+    # legitimately differ by ~1e-4 relative. Each row reports its own
+    # f64-relative err.
     flat_h = np.asarray(bins_of(hit))
     p_h = np.asarray(power, np.float64)
     hist_ref = np.zeros(B)
@@ -108,8 +72,7 @@ def main():
     per_ref = np.zeros(n_det)
     np.add.at(per_ref, np.asarray(det_id), p_h)
 
-    for name, fn in (("scatter", scatter), ("onehot", onehot),
-                     ("segsum", segsum)):
+    for name, fn in (("scatter", scatter), ("segsum", segsum)):
         @jax.jit
         def loop(v, p, did, fn=fn):
             def body(c, _):
@@ -131,6 +94,7 @@ def main():
         jax.block_until_ready(loop(hit2, power, det_id))
         dt = (time.perf_counter() - t0) / reps
         print(json.dumps({"variant": name, "rays": C,
+                          "device_kind": jax.devices()[0].device_kind,
                           "ms_per_call": dt * 1e3,
                           "rays_per_s": C / dt,
                           "rel_err_vs_f64": max(err_h, err_p)}),

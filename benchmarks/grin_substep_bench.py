@@ -5,19 +5,13 @@ so the speedup approaches the fraction of iterations that were mid-medium
 steps. Prints one JSON line per configuration.
 
 Usage: python benchmarks/grin_substep_bench.py [RAY_COUNT] [DOME_SEGS]
-(LPCL_FORCE_CPU=1 for CPU smoke runs; on TPU the full intersect is the
-Pallas kernel and the win is the same ratio at far larger scales.)
+(JAX_PLATFORMS=cpu for CPU smoke runs; on the GPU the full intersect is
+the Pallas kernel and the win is the same ratio at far larger scales.)
 """
 
 import json
-import os
 import sys
 import time
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

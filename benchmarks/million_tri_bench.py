@@ -1,16 +1,16 @@
-"""Order-of-magnitude scale datapoint: >= 1M triangles (VERDICT r3 item 6).
+"""Order-of-magnitude scale datapoint: >= 1M triangles.
 
-The HBM-streaming design (SURVEY.md §5.7: triangle soup tiled through VMEM
-with double-buffered DMA) claims scale, but the largest mesh validated
-through round 3 was 137k triangles. This benchmark runs the intersect
-kernel on a 1,048,576-triangle sphere (1024 x 512 tessellation):
+The streaming design (the triangle soup streamed tile by tile through the
+intersect kernel) claims scale beyond the 137k-triangle config-4 mesh.
+This benchmark runs the intersect on a 1,048,576-triangle sphere
+(1024 x 512 tessellation):
 
   * brute tests/s (chained-rep methodology, as bench.py)
   * streamed w4 HBM footprint
   * a small full trace for the conservation ledger at this scale
   * cull-on effective tests/s for a coherent bundle into the same mesh
 
-Appends one JSON line to benchmarks/results/million_tri_v5e.jsonl on TPU.
+Prints one JSON line (full size on a GPU, a small smoke size elsewhere).
 """
 
 import json
@@ -20,25 +20,21 @@ import time
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lpcl_jax_cache")
+    from lightpycl_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-
-    import importlib
 
     import lightpycl_tpu as L
     from lightpycl_tpu.sources import CollimatedSource
     from lightpycl_tpu.tracer.config import TraceConfig
     from lightpycl_tpu.tracer.engine import Tracer
+    from lightpycl_tpu.tracer.step import intersect
 
-    ip = importlib.import_module("lightpycl_tpu.ops.intersect_pallas")
-
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
+    on_gpu = jax.default_backend() == "gpu"
+    if on_gpu:
         seg, rad = 1024, 512          # 2 * 1024 * 512 = 1,048,576 tris
         n_rays = int(os.environ.get("BENCH_RAYS", 1 << 17))
         reps = 3
@@ -53,8 +49,7 @@ def main():
     scene, _ = L.build_scene([ball])
     mesh_s = time.perf_counter() - t_mesh0
     n_tris = ball.num_triangles
-    w4 = ip.pack_w4(scene, ip.TRI_TILE)
-    hbm_mb = (w4.size * 4) / (1 << 20)
+    hbm_mb = scene.num_triangles_padded * 12 * 4 / (1 << 20)  # transforms
 
     rng = np.random.default_rng(0)
     o = jnp.asarray(rng.uniform(-1, 1, (n_rays, 3)), jnp.float32)
@@ -66,7 +61,7 @@ def main():
     @jax.jit
     def bench(o_in, d_in):
         def body(c, _):
-            t, i = ip.intersect_pallas(scene, o_in + c, d_in, cfg)
+            t, i = intersect(scene, o_in + c, d_in, cfg)
             chk = jnp.clip(jnp.sum(jnp.where(jnp.isfinite(t), t, 0.0)),
                            0.0, 1.0)
             return chk * 1e-30, jnp.sum(i)
@@ -101,7 +96,7 @@ def main():
     for cull in (False, True):
         tr_c = Tracer()
         ws = []
-        for i in range(3 if on_tpu else 2):
+        for i in range(3 if on_gpu else 2):
             r = tr_c.trace(src_c, [ball], trace_iterations=2,
                            mode="device", cull=cull)
             if i > 0:
@@ -120,15 +115,10 @@ def main():
         "trace_wall_brute_s": walls[False],
         "trace_wall_cull_s": walls[True],
         "cull_speedup_thin_beam": walls[False] / walls[True],
-        "device": str(jax.devices()[0]),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
     }
-    line = json.dumps(out)
-    print(line)
-    if on_tpu:
-        path = os.path.join(os.path.dirname(__file__), "results",
-                            "million_tri_v5e.jsonl")
-        with open(path, "a") as f:
-            f.write(line + "\n")
+    print(json.dumps(out))
     return 0
 
 

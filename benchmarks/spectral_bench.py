@@ -1,12 +1,12 @@
-"""TPU benchmark: wavelength-parallel trace vs per-wavelength scalar traces.
+"""Benchmark: wavelength-parallel trace vs per-wavelength scalar traces.
 
 Scene: coated (HL)^3 high-reflector window + two detector discs + shell
 (the spectral example's geometry, scaled up). Measures, on the real chip:
   * one spectral trace carrying W wavelengths (trace_spectral), and
   * one scalar trace at a single wavelength (same rays) -> x W projection.
-Appends a JSON record to benchmarks/results/.
+Prints one JSON record.
 
-    python benchmarks/spectral_bench.py          # real TPU
+    python benchmarks/spectral_bench.py          # GPU
 """
 
 import json
@@ -15,14 +15,12 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lpcl_jax_cache")
-
 
 def main():
-    import jax
+    from lightpycl_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    enable_compile_cache()
+    import jax
     import jax.numpy as jnp
 
     from lightpycl_tpu import optical_elements, spectral
@@ -85,13 +83,10 @@ def main():
         "t_spectral_s": t_spec, "t_scalar_one_wl_s": t_scal,
         "scalar_projected_s": W * t_scal,
         "speedup_vs_scalar_spectrum": W * t_scal / t_spec,
-        "device": str(jax.devices()[0]),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
     }
     print(json.dumps(rec))
-    out = os.path.join(os.path.dirname(__file__), "results",
-                       "spectral_v5e.jsonl")
-    with open(out, "a") as f:
-        f.write(json.dumps(rec) + "\n")
 
 
 if __name__ == "__main__":

@@ -11,15 +11,10 @@ confirms them ray by ray:
     CL collapses by ~3 orders, then TRACE both lenses at the F and C
     lines — the doublet's measured focal shift shrinks accordingly.
 
-    LPCL_FORCE_CPU=1 python examples/example_aberrations.py
+    JAX_PLATFORMS=cpu python examples/example_aberrations.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

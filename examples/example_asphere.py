@@ -6,15 +6,10 @@ residual blur is mesh tessellation. The spherical version of the same lens
 shows classic spherical aberration: a larger spot, pulled short of the
 paraxial focus. (Extension beyond the reference's spherical-only factory.)
 
-    LPCL_FORCE_CPU=1 python examples/example_asphere.py
+    JAX_PLATFORMS=cpu python examples/example_asphere.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

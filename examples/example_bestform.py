@@ -16,16 +16,11 @@ note in example_lens_design.py and the ROADMAP negative result):
     q = (c1 + c2)/(c1 - c2); the spot-RMS minimum falls in a basin
     around the thin-lens optimum q* = 2(n^2 - 1)/(n + 2) ~ 0.714.
 
-    LPCL_FORCE_CPU=1 python examples/example_bestform.py
+    JAX_PLATFORMS=cpu python examples/example_bestform.py
 """
 
 import os
 import time
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import jax.numpy as jnp

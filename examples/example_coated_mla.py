@@ -11,11 +11,6 @@ glass-air surfaces, so the coating's per-surface Fresnel saving (~4.3% ->
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from lightpycl_tpu import instance_grid, optical_elements

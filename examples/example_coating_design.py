@@ -18,16 +18,11 @@ Three demos:
     detected power gain is the designed reflectance, realized in the
     ray tracer.
 
-    LPCL_FORCE_CPU=1 python examples/example_coating_design.py
+    JAX_PLATFORMS=cpu python examples/example_coating_design.py
 """
 
 import os
 import time
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -6,16 +6,11 @@ format-neutral prescription as the Zemax loader, so the paraxial ABCD
 fold and the traceable scene build are the shared zmx layers. The
 traced best focus must land on the sequence's own image-plane distance.
 
-    LPCL_FORCE_CPU=1 python examples/example_codev.py
+    JAX_PLATFORMS=cpu python examples/example_codev.py
 """
 
 import os
 import tempfile
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

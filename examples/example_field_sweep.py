@@ -18,15 +18,10 @@ prediction dz_t = -(3 S3 + S4) / (2 n' u'^2), dz_s = -(S3 + S4) /
 (2 n' u'^2) from `paraxial.seidel` — trace and aberration theory meet
 to a few percent at these apertures.
 
-    LPCL_FORCE_CPU=1 python examples/example_field_sweep.py
+    JAX_PLATFORMS=cpu python examples/example_field_sweep.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -11,11 +11,6 @@ Run: RAY_COUNT=4096 python examples/example_fresnel_lens.py
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 import lightpycl_tpu as L

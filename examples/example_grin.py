@@ -13,15 +13,10 @@ sweep of rod lengths (the sinusoid, measured, not assumed); the
 quarter-pitch rod focuses a collimated beam to a spot far below the
 input radius; power conserved in every run.
 
-    LPCL_FORCE_CPU=1 python examples/example_grin.py
+    JAX_PLATFORMS=cpu python examples/example_grin.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -1,19 +1,15 @@
 """BASELINE config 4: large-mesh scene (>=100k triangles) with a directional
-source, 100M rays batched through HBM double-buffered tiles.
+source, 100M rays batched through device memory.
 
 Uses Tracer.trace_batched: rays are generated ON DEVICE (jax.random) in
-mega-batches so the host never stages 100M x 32B of ray state; the Pallas
-intersect kernel streams the triangle transforms through VMEM double
-buffered; the run checkpoints after every batch and resumes if interrupted
-(delete /tmp/large_mesh_ckpt.npz to restart).
+mega-batches so the host never stages 100M x 32B of ray state; the
+intersect kernel streams the triangle transforms tile by tile; the run
+checkpoints after every batch and resumes if interrupted
+(delete large_mesh_ckpt.npz in the temp directory to restart).
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+import tempfile
 
 import lightpycl_tpu as L
 from lightpycl_tpu.sources import CollimatedSource
@@ -25,7 +21,8 @@ setup_logging()
 
 TOTAL_RAYS = int(os.environ.get("TOTAL_RAYS", 100_000_000))
 BATCH = int(os.environ.get("BATCH", 4_000_000))
-CKPT = os.environ.get("CKPT", "/tmp/large_mesh_ckpt.npz")
+CKPT = os.environ.get("CKPT", os.path.join(tempfile.gettempdir(),
+                                           "large_mesh_ckpt.npz"))
 
 # >=100k triangle scene: finely tessellated mirror bowl + detector dome
 seg = int(os.environ.get("MESH_SEGMENTS", 360))

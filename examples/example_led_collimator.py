@@ -10,15 +10,10 @@ narrow forward cone. Anchors: the bare die's 10-degree fraction equals
 the Lambertian closed form sin^2(10 deg) = 0.030; the condenser multiplies
 it several-fold; power conserved in both runs.
 
-    LPCL_FORCE_CPU=1 python examples/example_led_collimator.py
+    JAX_PLATFORMS=cpu python examples/example_led_collimator.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -26,16 +26,11 @@ the smooth surface. Keep the radial tessellation fine across the beam
 how finely third-order aberration differences (e.g. the Coddington
 best-form shape factor) can be resolved.
 
-    LPCL_FORCE_CPU=1 python examples/example_lens_design.py
+    JAX_PLATFORMS=cpu python examples/example_lens_design.py
 """
 
 import os
 import time
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import jax.numpy as jnp

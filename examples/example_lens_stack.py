@@ -3,11 +3,6 @@ ray splitting, 5 trace iterations, compaction between bounces."""
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 from lightpycl_tpu.compat import CL_Tracer, optical_elements
 from lightpycl_tpu.sources import CollimatedSource
 from lightpycl_tpu.utils import setup_logging

@@ -5,15 +5,10 @@ measurement panel on the output port: ray optics delivers exactly
 2 R T = 0.5 of the source power there (0.25 via each arm); the other half
 returns toward the source and escapes.
 
-    LPCL_FORCE_CPU=1 python examples/example_michelson.py
+    JAX_PLATFORMS=cpu python examples/example_michelson.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

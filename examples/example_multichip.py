@@ -7,16 +7,11 @@ detector state back into a normal TraceResult).
 
 On a single-chip box, simulate the mesh with 8 virtual CPU devices:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    LPCL_FORCE_CPU=1 python examples/example_multichip.py
+    JAX_PLATFORMS=cpu python examples/example_multichip.py
 """
 
 import os
 import time
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import numpy as np

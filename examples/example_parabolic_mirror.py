@@ -9,11 +9,6 @@ exported to DXF.
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from lightpycl_tpu.compat import CL_Tracer, light_source, optical_elements
@@ -33,7 +28,7 @@ ls = light_source(
     power=1.0, ray_count=RAY_COUNT,
 )
 
-tracer = CL_Tracer(platform_name="", device_type="TPU")
+tracer = CL_Tracer(platform_name="", device_type="GPU")
 res = tracer.iterative_tracer(ls, [mirror, dome], trace_iterations=8,
                               max_ray_len=1e3, ior_env=1.0)
 

@@ -7,11 +7,6 @@ image + ledger return to the host."""
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from lightpycl_tpu import optical_elements

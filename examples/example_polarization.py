@@ -4,11 +4,6 @@ and a partially p-polarized transmission."""
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 import lightpycl_tpu as L

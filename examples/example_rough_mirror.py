@@ -15,15 +15,10 @@ parabola is hit obliquely toward the rim — the split itself is
 deterministic, so the match is sampling-exact); sigma = lambda/50
 already costs ~6% contrast; power conserved in every run.
 
-    LPCL_FORCE_CPU=1 python examples/example_rough_mirror.py
+    JAX_PLATFORMS=cpu python examples/example_rough_mirror.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

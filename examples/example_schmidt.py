@@ -14,15 +14,10 @@ noise floor. The corrector and the measurement share one Noll
 convention end to end.
 
 Run: RAY_COUNT=4000 python examples/example_schmidt.py
-     LPCL_FORCE_CPU=1 to force CPU jax.
+     JAX_PLATFORMS=cpu runs it on the CPU.
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

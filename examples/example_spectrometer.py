@@ -5,15 +5,10 @@ A collimated beam carrying two spectral lines hits a reflection grating
 sin(theta) = lambda / period and land on separate spots of the detector
 dome — a minimal spectrometer.
 
-    LPCL_FORCE_CPU=1 python examples/example_spectrometer.py
+    JAX_PLATFORMS=cpu python examples/example_spectrometer.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -16,11 +16,6 @@ hemisphere, and further wall bounces add geometrically-decaying terms.
 
 import os
 
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from lightpycl_tpu import optical_elements

@@ -18,15 +18,10 @@ fabrication errors? Two standard answers, cross-validated here:
 The reference can only do (1), slowly; (2) exists because the tracer is
 differentiable.
 
-    LPCL_FORCE_CPU=1 python examples/example_tolerancing.py
+    JAX_PLATFORMS=cpu python examples/example_tolerancing.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import jax.numpy as jnp

@@ -16,15 +16,10 @@ Anchors:
     optical depth — why headlights still glow through fog;
   * exact power conservation through arbitrary scatter chains.
 
-    LPCL_FORCE_CPU=1 python examples/example_turbid.py
+    JAX_PLATFORMS=cpu python examples/example_turbid.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

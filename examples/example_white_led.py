@@ -13,15 +13,10 @@ Anchors: the surviving pump obeys e^{-mu_f L} exactly; each chromaticity
 lands on the blue-yellow mixing line; CCT falls monotonically with
 phosphor loading; power conserved to ~1e-5 in every run.
 
-    LPCL_FORCE_CPU=1 python examples/example_white_led.py
+    JAX_PLATFORMS=cpu python examples/example_white_led.py
 """
 
 import os
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -13,17 +13,12 @@ Workflow a lens designer migrating from OpticStudio would follow:
      and that the achromat's F-vs-C focal shift is suppressed vs an
      equivalent singlet.
 
-    LPCL_FORCE_CPU=1 python examples/example_zmx.py
+    JAX_PLATFORMS=cpu python examples/example_zmx.py
 """
 
 import math
 import os
 import tempfile
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -1,18 +1,14 @@
 """Run every example at reduced size (CI-style sweep).
 
-    LPCL_FORCE_CPU=1 python examples/run_all.py     # CPU, ~3 min
-    python examples/run_all.py                      # real TPU
+    JAX_PLATFORMS=cpu python examples/run_all.py     # CPU, ~3 min
+    python examples/run_all.py                      # GPU
 """
 
 import os
 import runpy
 import sys
+import tempfile
 import time
-
-if os.environ.get("LPCL_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -38,10 +34,11 @@ SMALL = {
     "example_rough_mirror.py": {"RAY_COUNT": "8000"},
     "example_grin.py": {"RAY_COUNT": "1000"},
     "example_schmidt.py": {"RAY_COUNT": "1500"},
-    # sized for the CPU jnp fallback; on TPU bump via env before running
+    # sized for the CPU jnp reference; on the GPU bump via env before running
     "example_large_mesh.py": {"TOTAL_RAYS": "200000", "BATCH": "100000",
                               "MESH_SEGMENTS": "48",
-                              "CKPT": "/tmp/run_all_ckpt.npz"},
+                              "CKPT": os.path.join(tempfile.gettempdir(),
+                                                   "run_all_ckpt.npz")},
     "example_multichip.py": {"RAY_COUNT": "16384"},
     "example_fresnel_lens.py": {"RAY_COUNT": "4000"},
     "example_coating_design.py": {"OPT_STEPS": "300"},
@@ -72,7 +69,7 @@ def check_listing(on_disk, listed):
 def main():
     # Every example_*.py on disk MUST have a SMALL entry (its reduced-size
     # env) — a new example that isn't listed used to be silently skipped,
-    # letting "all green" rot (VERDICT r3 weak #7). Fail loudly instead.
+    # letting "all green" rot. Fail loudly instead.
     unlisted, missing = check_listing(discover_examples(), SMALL)
     if unlisted or missing:
         if unlisted:

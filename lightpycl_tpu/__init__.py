@@ -1,4 +1,4 @@
-"""lightpycl_tpu — TPU-native geometric-optics ray tracer.
+"""lightpycl_tpu — a JAX geometric-optics ray tracer.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of LightPyCL
 (ngchihuan/LightPyCL; see SURVEY.md for the capability inventory): Python
@@ -9,16 +9,17 @@ internal reflection and Fresnel power-split ray splitting; measurement
 surfaces accumulate power; results post-process into directivity plots and
 DXF CAD exports.
 
-Architecture (TPU-first, not a port):
+Architecture (a rebuild, not a port):
   * functional core — scenes/rays are pytrees, the trace step is jitted,
     shapes are static, compaction is an on-device sort, the detector
     histogram is an on-device scatter-add;
-  * hot loop — ray x triangle nearest-hit runs as a Pallas kernel that casts
-    per-triangle unit-space affine transforms as MXU matmuls with a VPU
-    epilogue and a running argmin across streamed triangle tiles
-    (reference equivalent: kernel_reflect_refract_intersect.cl, SURVEY.md §3);
+  * hot loop — ray x triangle nearest-hit runs on the GPU as a Pallas
+    kernel (Triton route) that evaluates per-triangle unit-space affine
+    transforms as fp32 FMAs with a running argmin across streamed triangle
+    tiles (reference equivalent: kernel_reflect_refract_intersect.cl,
+    SURVEY.md §3);
   * scale-out — rays shard over a device mesh with `shard_map`; detector
-    bins and power ledgers reduce with `psum` over ICI.
+    bins and power ledgers reduce with `psum`.
 """
 
 from lightpycl_tpu.materials import Material, glass

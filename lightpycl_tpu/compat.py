@@ -5,7 +5,7 @@ example scripts port one-to-one". This module is the thin OO shell over the
 functional core (SURVEY.md §7 design stance): `CL_Tracer` mirrors the
 reference's host runtime class (iterative_tracer.py: CL_Tracer(platform_name,
 device_type) [recalled]) — device selection arguments are accepted and
-ignored because device choice is jax's job on TPU.
+ignored because device choice is jax's job.
 
 The factory `optical_elements` and `light_source` constructors are exported
 from their own modules and re-exported here, mirroring the reference's flat

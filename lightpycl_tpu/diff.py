@@ -8,7 +8,7 @@ through shading (Fresnel powers, Snell directions), intersection (hit
 distances), and — with the parametric meshers in this module — the lens
 prescription itself (curvatures, thickness). `jax.grad` + optax turn the
 tracer into a lens-design optimizer; this capability has no reference
-equivalent and is a direct consequence of the TPU-first functional design.
+equivalent and is a direct consequence of the functional design.
 
 Differentiation semantics (standard in differentiable ray tracing): the
 ray→triangle assignment (argmin) and all material/visibility masks are
@@ -20,7 +20,7 @@ surface, so gradients carry O(1/n_seg^2) facet noise — use enough segments
 (>= 32) and a few hundred rays to average it out.
 
 Gradient safety: the production intersectors (tracer/step.py,
-ops/intersect_pallas.py) exploit IEEE inf/nan semantics (t = -OW / DW with
+ops/intersect_gpu.py) exploit IEEE inf/nan semantics (t = -OW / DW with
 DW == 0 on padding rows). Forward that is correct and fast, but reverse-mode
 AD of x / 0 manufactures nan cotangents even under a downstream mask
 (0 * inf). `intersect_diff` here is the same unit-transform math with a
@@ -394,7 +394,7 @@ def make_spot_loss(*, ior: float, thickness: float, aperture_radius: float,
 # prescription expressed as quadric coefficients is differentiable with NO
 # tessellation in the loop: gradients of curvature / conic / thickness are
 # exact instead of carrying O(1/n_seg^2) facet noise. This is what makes
-# third-order shape optimization possible — docs/ROADMAP.md records that
+# third-order shape optimization possible — ROADMAP.md records that
 # Coddington best-form recovery on MESHED singlets is tessellation-limited
 # (the facet cone blur swamps the q-dependence); with exact caps the spot
 # RMS resolves it cleanly (tests/test_diff_analytic.py).
@@ -609,7 +609,7 @@ def make_analytic_spot_loss(*, ior: float, thickness: float,
 # stack by gradient descent, then hand the optimized [(n, h), ...] list
 # straight to GeoObject(coating=...) and trace it. The reference carries
 # no film model at all (SURVEY.md §8.5 lists coatings as absent), so this
-# subsystem is TPU-rebuild-only capability.
+# subsystem has no reference equivalent.
 
 
 def band_reflectance(layers_n, layers_h, *, n_sub, wavelengths,

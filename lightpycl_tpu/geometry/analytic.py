@@ -2,13 +2,13 @@
 
 Extension over the reference (SURVEY.md's upstream is triangle-mesh only:
 every curved surface is tessellated, so ray accuracy is facet-limited —
-the repo's Coddington/Strehl negative results in docs/ROADMAP.md all trace
+the repo's Coddington/Strehl negative results in ROADMAP.md all trace
 back to facet cone blur). An `AnalyticSurface` is intersected EXACTLY on
 device instead: conic sections (sphere / paraboloid / ellipsoid /
 hyperboloid / plane, the classic sequential-ray-tracer surface model) and
 cylinder side walls, bounded by radial and axial aperture limits.
 
-Design (TPU-first): every analytic surface is one row of the ordinary
+Design: every analytic surface is one row of the ordinary
 per-triangle attribute tables — it flows through `build_scene` like any
 GeoObject, carrying the FULL material model (coatings, polarization,
 dispersion, metals, gratings, detectors...) with zero new physics code.

@@ -4,7 +4,7 @@ Reference parity: `GeoObject` in geo_optical_elements.py (SURVEY.md §3
 "GeoObject" [recalled]) — a triangle mesh plus material type and index of
 refraction, with translate / rotate / scale transforms.
 
-TPU-first design note: meshes are HOST-side numpy float64 during scene
+Design note: meshes are HOST-side numpy float64 during scene
 construction (tessellation and transforms are cold-path; f64 keeps the
 precomputed unit-triangle transforms accurate), and are flattened + cast to
 f32 device arrays only by `tracer.scene.build_scene`. Transform methods

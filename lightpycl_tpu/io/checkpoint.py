@@ -1,7 +1,7 @@
 """Trace-state checkpoint / resume.
 
 Reference parity: the reference has NO checkpointing (SURVEY.md §5.4 —
-longest runs are seconds); this is the cheap TPU-native extension the
+longest runs are seconds); this is the cheap extension the
 survey recommends for the 100M-ray mega-batch config: ray batches are
 independent, so a long run snapshots (ray SoA, detector bins, power ledger,
 batch cursor) to npz and resumes batch-exactly.

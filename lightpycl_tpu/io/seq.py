@@ -1,7 +1,6 @@
 """CODE V ``.seq`` sequence-file import.
 
-Round-5 interchange wave (docs/ROADMAP.md §7's last live candidate;
-VERDICT r4 next #10): CODE V is the other optical-design package real
+CODE V is the other optical-design package real
 prescriptions ship from. Rather than duplicating the import stack, the
 parser maps the sequence file onto the SAME format-neutral
 :class:`~lightpycl_tpu.io.zmx.ZmxPrescription` the Zemax loader

@@ -1,3 +1,2 @@
-from lightpycl_tpu.ops.intersect_pallas import intersect_pallas, pallas_available
-
-__all__ = ["intersect_pallas", "pallas_available"]
+"""Hand-written device kernels: intersect_gpu (ray x triangle nearest hit)
+and quadric (exact analytic-surface intersection)."""

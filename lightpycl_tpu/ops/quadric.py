@@ -6,9 +6,9 @@ factory"): each `AnalyticSurface` in a scene is intersected EXACTLY here
 instead of through its (placeholder) triangle, eliminating facet-cone blur
 on curved optics.
 
-TPU-first design: a `lax.scan` over the Q surfaces with an O(C) carry
-(running nearest t + surface index) — Q is a handful of rows, so this is a
-tiny fused VPU epilogue next to the Pallas triangle kernel, not a kernel of
+Design: a `lax.scan` over the Q surfaces with an O(C) carry (running
+nearest t + surface index) — Q is a handful of rows, so this is a tiny
+fused elementwise epilogue next to the triangle kernel, not a kernel of
 its own. All math is f32 like the triangle path; a ray-recentering step
 (solve around the closest approach to the surface vertex) keeps the
 quadratic well-conditioned when origins sit far from the element.
@@ -32,8 +32,8 @@ import jax.numpy as jnp
 # buffers but compiled program expected N+3")
 _INF = float("inf")
 
-# geometry matmuls must never run at the TPU default matmul precision:
-# bf16 truncation of the frame transforms silently shifts hit points by
+# geometry matmuls must never run at a reduced matmul precision: TF32
+# truncation of the frame transforms silently shifts hit points by
 # ~1e-3 of the scene scale — exactly the facet-scale error this module
 # exists to eliminate (CLAUDE.md invariant; matches diff.py / step.py)
 _HI = jax.lax.Precision.HIGHEST

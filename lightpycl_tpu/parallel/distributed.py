@@ -1,10 +1,10 @@
 """Multi-host bootstrap.
 
 Reference parity: none — the reference is single-process (SURVEY.md §5.8).
-TPU-native equivalent: `jax.distributed` process bootstrap; after
+Equivalent here: `jax.distributed` process bootstrap; after
 `init_distributed()`, `jax.devices()` spans all hosts and the mesh builders
-in parallel/sharding.py work unchanged (ICI within a slice, DCN across
-hosts is XLA's concern, not ours).
+in parallel/sharding.py work unchanged (the interconnect is XLA's
+concern, not ours).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> int:
     """Initialize jax.distributed (no-op when already initialized or when
-    the environment provides the configuration, e.g. on Cloud TPU pods).
+    the environment provides the configuration). Without such an
+    environment, pass all three arguments.
     Returns the number of global devices."""
     try:
         jax.distributed.initialize(

@@ -1,11 +1,11 @@
 """Multi-chip scale-out: rays sharded over a device mesh, mesh replicated.
 
 Reference parity: the reference is single-process single-device (SURVEY.md
-§3 'Distributed comm backend: none'); the TPU-native scale-out axis required
+§3 'Distributed comm backend: none'); the scale-out axis required
 by BASELINE configs[4] is RAY data parallelism: the ray batch shards over a
 1-D `"rays"` mesh axis with `shard_map`, the triangle mesh and materials
 replicate to every chip, and the detector histogram + power-conservation
-ledger reduce with `psum` over ICI. Rays never migrate between chips
+ledger reduce with `psum`. Rays never migrate between chips
 (Fresnel-split children stay on their parent's chip), so there is zero
 point-to-point traffic — scaling is linear by construction up to compaction
 imbalance.

@@ -6,7 +6,7 @@ intensity `directivity(azimuth, polar)` (per-ray power proportional to the
 directivity, total power normalized to `power`), plus a collimated / disc
 aperture bundle variant.
 
-TPU-first notes: host-side sampling uses numpy (cold path), but each source
+Design notes: host-side sampling uses numpy (cold path), but each source
 also provides `rays_on_device(key, n)` so mega-batches (BASELINE configs[3],
 100M rays) are generated directly in HBM with `jax.random` instead of being
 staged through the host.
@@ -347,8 +347,8 @@ class CollimatedSource:
         if self.divergence > 0.0:
             # same physics as sample(); halton reuses the deterministic
             # stream (bases 5, 7) so host and device emit identical rays.
-            # NOTE: built elementwise, not `dloc @ F` — TPU matmuls default
-            # to bf16 operand truncation (CLAUDE.md precision rule)
+            # NOTE: built elementwise, not `dloc @ F` — an f32 matmul may
+            # run in TF32 (CLAUDE.md precision rule)
             if self.sampling == "halton":
                 z = jnp.asarray(1.0 - halton_sequence(n, 5)
                                 * (1.0 - np.cos(self.divergence)),
@@ -479,8 +479,8 @@ class AreaSource:
             a, b = r * jnp.cos(phi), r * jnp.sin(phi)
         origins = (jnp.asarray(self.center, jnp.float32)
                    + a[:, None] * u + b[:, None] * v)
-        # elementwise frame combination, not a matmul (TPU bf16 truncation
-        # — CLAUDE.md precision rule)
+        # elementwise frame combination, not a matmul (TF32 truncation —
+        # CLAUDE.md precision rule)
         dx, dy, dz = self._directions_local(u3, u4, jnp)
         dirs = dx[:, None] * u + dy[:, None] * v + dz[:, None] * w
         powers = jnp.full((n,), self.power / n, jnp.float32)

@@ -12,9 +12,8 @@ bounce, the thin-film reflectance is evaluated per wavelength column, and
 the power ledger is kept per wavelength — conservation holds COLUMN-WISE,
 so every spectral sample is individually audited.
 
-Speedup ~= W x on intersect-bound scenes (the usual case). This is the
-TPU-idiomatic formulation of ROADMAP item 5: the wavelength axis is a
-vectorized (VPU lane) axis of the shade epilogue, not a loop.
+Speedup ~= W x on intersect-bound scenes (the usual case): the wavelength
+axis is a vectorized axis of the shade epilogue, not a loop.
 
 Supported materials: mirror, refractive (bare or coated), terminator,
 measure, beamsplitter. Rejected (they make geometry or polarization state
@@ -431,10 +430,8 @@ def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid,
             sh, _ = step_mod.roulette(sh, cfg, k)
         # GLOBAL top-k compaction over all 2*W*C children. A per-
         # wavelength-lane variant (W batched small top-ks, per-lambda cull
-        # fairness) was built and measured SLOWER on v5e (1.87s vs 1.43s
-        # on the 16-wavelength prism bench): the (W, 2C) take_along_axis
-        # gathers over the 12 child arrays cost more than the smaller
-        # sorts save. Under adequate headroom (zero cull) the two are
+        # fairness) needs (W, 2C) take_along_axis gathers over the 12
+        # child arrays. Under adequate headroom (zero cull) the two are
         # physically identical, so the simpler global form stays.
         new_rays, _ = step_mod.compact(sh, rays.capacity, cfg)
         _, live_after_w = bin_by(

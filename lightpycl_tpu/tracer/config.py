@@ -43,7 +43,9 @@ class TraceConfig:
                         dome's center for off-origin detectors, or the
                         directivity histogram silently skews)
       tri_chunk:        triangle tile size for the jnp intersect scan
-      backend:          'auto' | 'pallas' | 'jnp' intersect implementation
+      backend:          'auto' — the Pallas kernel on the GPU, the jnp
+                        reference elsewhere; 'jnp' — always the jnp
+                        reference (the differentiable paths use it)
       allow_splitting:  False skips the refracted-child slots and the 2C
                         compaction entirely (valid when the scene has no
                         refractive elements; the engine sets this
@@ -71,24 +73,18 @@ class TraceConfig:
     backend: str = "auto"
     allow_splitting: bool = True
     compaction: str = "topk"
-    # conservative block x tile culling in the Pallas kernel: identical
-    # intersect results to brute force (the mask only skips provably
-    # unreachable block x tile cells), 2.9-3.2x end-to-end on coherent
-    # scenes. None (default) = AUTO: the engine enables it when the
-    # source bundle is coherent enough for the mask to bite (cheap
-    # min-cosine test on the sampled directions, see
-    # Tracer._resolve_cull) and disables it otherwise. Ray count never
-    # gates it: past the SMEM mask budget intersect_pallas slices the
-    # ray axis into chunks whose masks fit at the tuned block/tile rung
-    # (ops.intersect_pallas.cull_ray_chunk — without it the kernel
-    # self-disables to brute while still paying the Morton sort, which
-    # measured BELOW brute at 16M rays on v5e). True/False force it
-    # (the kernel's SMEM self-disable stays as the correctness backstop
-    # for direct _intersect_pallas_impl callers). Direct step.trace_step
-    # users: None behaves as False.
-    # Note the per-bounce Morton reorder changes scatter-add ORDER, so
-    # detector sums may differ from the brute path at fp-reassociation
-    # level (~1e-7 relative) — physics identical.
+    # conservative ray-block x triangle-tile culling in the GPU kernel:
+    # identical intersect results to brute force (the mask only skips
+    # provably unreachable cells). None (default) = AUTO: the engine
+    # enables it when the source bundle is coherent enough for the mask
+    # to bite (cheap min-cosine test on the sampled directions, see
+    # Tracer._resolve_cull) and disables it otherwise. True/False force
+    # it. Direct step.trace_step users: None behaves as False. The jnp
+    # reference (CPU) ignores the mask and only pays the per-bounce
+    # Morton reorder.
+    # The reorder changes scatter-add ORDER, so detector sums may differ
+    # from the brute path at fp-reassociation level (~1e-7 relative) —
+    # physics identical.
     cull: bool | None = None
     # opt-in Stokes-Mueller polarization: polarized Fresnel coefficients,
     # TIR retardation, frame tracking. Off (default) = the reference's
@@ -227,19 +223,6 @@ class TraceConfig:
     # (triangle indices are global): mesh2d is refused; spectral traces do
     # not support it yet.
     flux_map: bool = False
-    # detector-accumulation formulation. 'scatter' = XLA .at[].add (sort-
-    # based segmented reduce); 'mxu' = chunked one-hot matmuls on the MXU
-    # (one one-hot per index array, shared by all weight rows). 'auto'
-    # picks MXU on TPU for small-bin surfaces (angular hist, per-detector,
-    # image, time-of-flight) and scatter elsewhere (CPU; the per-triangle
-    # flux map, whose bin count ~ scene size would make the one-hot FLOPs
-    # rival the intersect itself). Measured at 4M rays x 648 bins on v5e:
-    # MXU 7.3 ms vs scatter 78.5 ms (10.7x) AND closer to the f64 sum
-    # (3.8e-7 vs 1.1e-4 — the MXU's chunked accumulation orders the f32
-    # adds better than the segmented scatter), benchmarks/detector_bench.py
-    # -> results/detector_epilogue_v5e_r4.jsonl. Physics identical either
-    # way; sums differ at fp-reassociation level.
-    detector_accum: str = "auto"
     # ghost / stray-light path tracking (extension): every surviving child
     # appends a digit (element index, reflected-or-transmitted branch) to
     # its f32 path signature in base path_base = 2 * n_elements + 1; the

@@ -177,7 +177,7 @@ class TraceResult:
 
 
 class Tracer:
-    """TPU trace session (reference: CL_Tracer(platform_name, device_type) —
+    """Trace session (reference: CL_Tracer(platform_name, device_type) —
     platform/device selection is jax's job here; kwargs kept for compat)."""
 
     def __init__(self, cfg: Optional[TraceConfig] = None):
@@ -695,10 +695,10 @@ class Tracer:
 
     # auto-cull coherence threshold: enable when every sampled direction
     # is within 60 degrees of the bundle mean (min cosine >= 0.5).
-    # Measured (benchmarks/cull_auto_bench.py, v5e): collimated bundles
-    # (min_cos ~ 1) win 2.9-3.2x; isotropic sources (min_cos ~ -1) pay
-    # only the mask+reorder overhead but cull nothing, so auto keeps them
-    # on the brute path.
+    # Collimated bundles (min_cos ~ 1) are what the mask culls (1.75x end
+    # to end at config 4 on the H100, CHANGES.md); isotropic sources
+    # (min_cos ~ -1) would pay the mask and reorder but cull nothing, so
+    # auto keeps them on the brute path.
     _CULL_MIN_COS = 0.5
 
     def _resolve_cull(self, cfg: TraceConfig, mode: str,
@@ -713,10 +713,8 @@ class Tracer:
         work verbatim; the per-bounce Morton resort runs inside
         trace_mesh2d with a pmin/pmax-global quantization box so every
         TRI rank permutes identically. Ray count does NOT gate auto:
-        past the SMEM mask budget the kernel slices the ray axis into
-        chunks whose masks fit at the tuned rung
-        (ops.intersect_pallas.cull_ray_chunk), so the mask stays
-        effective at any batch size."""
+        the mask lives in device memory, one row per ray block, at any
+        batch size."""
         if cfg.cull is not None:
             return cfg
         if dirs is None and rays is not None:
@@ -885,7 +883,7 @@ class Tracer:
         through the device in `batch_size` chunks generated ON DEVICE
         (jax.random). Device accumulators stay f32 WITHIN a batch; across
         batches the detector bins and ledger aggregate host-side in float64
-        (16M+ f32 scatter-adds drift by ~1e-3 otherwise — measured on v5e).
+        (16M+ f32 scatter-adds drift by ~1e-3 otherwise).
         With `checkpoint_path`, state snapshots after every batch and an
         interrupted run resumes at the next batch (SURVEY.md §5.4).
 

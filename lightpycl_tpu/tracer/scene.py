@@ -4,7 +4,7 @@ Reference parity: the scene-flatten step of CL_Tracer.iterative_tracer
 (SURVEY.md §4.3): concatenate mesh vertices with index offsets and build
 per-triangle material / IOR arrays.
 
-TPU-first design: alongside the raw (v0, e1, e2) soup we precompute, in host
+Design: alongside the raw (v0, e1, e2) soup we precompute, in host
 float64, the per-triangle WORLD -> UNIT-TRIANGLE affine transform
 
     [u, v, w]^T = A_inv @ (p - v0),   A = [e1 | e2 | e1 x e2]
@@ -12,10 +12,9 @@ float64, the per-triangle WORLD -> UNIT-TRIANGLE affine transform
 stored as three (T, 4) row matrices (rows of A_inv with the translation
 folded in). With homogeneous ray origin O4 = [o, 1] and direction D4 =
 [d, 0], the per-(ray, triangle) quantities OU/OV/OW and DU/DV/DW are plain
-matmuls (R,4) @ (4,T) — this is what lets the Pallas intersect kernel put
-the dominant FLOPs of Möller–Trumbore-equivalent testing on the MXU instead
-of scalar VPU code (the reference's work-item-per-ray OpenCL loop,
-kernel_reflect_refract_intersect.cl, has no such opportunity on GPU).
+contractions (R,4) @ (4,T): three FMAs per plane per (ray, triangle) pair,
+which is what the intersect kernel (ops/intersect_gpu.py) evaluates in
+fp32, with no per-pair cross products as in Möller–Trumbore.
 
 The hit test then reduces to:  t = -OW / DW;  u = OU + t DU;  v = OV + t DV;
 hit iff DW != 0, eps < t < t_max, u >= -eps_b, v >= -eps_b, u + v <= 1+eps_b

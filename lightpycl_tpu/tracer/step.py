@@ -38,7 +38,7 @@ _INF = float("inf")
 
 
 # --------------------------------------------------------------------------
-# Intersection (jnp fallback path; the Pallas kernel in ops/ is the fast one)
+# Intersection (the plain reference and CPU path; the GPU kernel is in ops/)
 # --------------------------------------------------------------------------
 
 def _intersect_tile(o4, d4, wu, wv, ww, eps, eps_b, t_max):
@@ -46,12 +46,12 @@ def _intersect_tile(o4, d4, wu, wv, ww, eps, eps_b, t_max):
 
     o4 (C,4) homogeneous origins, d4 (C,4) directions (w=0); wu/wv/ww (K,4)
     unit-transform rows. Returns (t (C,), idx (C,) argmin within tile).
-    Same math on MXU-friendly matmuls as the Pallas kernel — see
+    Same math as the GPU kernel, written as matmuls — see
     tracer/scene.py for the derivation and its equivalence to
     Möller–Trumbore (reference kernel: SURVEY.md §3 'Intersect kernel').
     """
-    # precision=HIGHEST: TPU's default matmul truncates f32 operands to
-    # bf16, which wrecks the ill-conditioned transforms of skinny triangles
+    # precision=HIGHEST: a default-precision f32 matmul may run in TF32,
+    # which wrecks the ill-conditioned transforms of skinny triangles
     # (e.g. pole fans) and leaks double-digit percentages of power.
     f32 = jnp.float32
     hi = jax.lax.Precision.HIGHEST
@@ -176,17 +176,17 @@ def nearest_t_rows(o, d, wu, wv, ww, cfg: TraceConfig, ray_block: int = 4096):
 
 
 def intersect(scene: Scene, o, d, cfg: TraceConfig, alive=None):
-    """Backend-dispatching nearest-hit. `alive` (optional) lets the Pallas
-    cull skip all-dead ray blocks."""
-    if cfg.backend in ("pallas", "auto"):
-        try:
-            from lightpycl_tpu.ops.intersect_pallas import intersect_pallas, pallas_available
+    """Nearest hit, by platform: the Pallas kernel (ops/intersect_gpu.py)
+    on the GPU, intersect_jnp elsewhere and whenever cfg.backend == 'jnp'.
+    `alive` (optional) lets the kernel's cull skip all-dead ray blocks.
+    A kernel that fails to build raises; nothing falls back."""
+    if cfg.backend not in ("auto", "jnp"):
+        raise ValueError(f"TraceConfig.backend must be 'auto' or 'jnp', "
+                         f"got {cfg.backend!r}")
+    if cfg.backend == "auto" and jax.default_backend() == "gpu":
+        from lightpycl_tpu.ops.intersect_gpu import intersect_gpu
 
-            if cfg.backend == "pallas" or pallas_available():
-                return intersect_pallas(scene, o, d, cfg, alive=alive)
-        except ImportError:
-            if cfg.backend == "pallas":
-                raise
+        return intersect_gpu(scene, o, d, cfg, alive=alive)
     return intersect_jnp(scene, o, d, cfg)
 
 
@@ -209,7 +209,7 @@ def morton_order(o, alive, lo, hi):
 
     Spatially-local ray blocks are what make the Pallas kernel's
     conservative block x tile cull effective (PAPERS.md: 'On Ray Reordering
-    Techniques for Faster GPU Ray Tracing' — same idea, TPU-shaped: sort
+    Techniques for Faster GPU Ray Tracing' — same idea: sort
     once per bounce, blocks become coherent patches)."""
     span = jnp.maximum(hi - lo, 1e-20)
     q = jnp.clip(((o - lo) / span * 1023.0), 0.0, 1023.0).astype(jnp.uint32)
@@ -1378,66 +1378,6 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
 # Detector accumulation
 # --------------------------------------------------------------------------
 
-# MXU-vs-scatter dispatch for the weighted bincounts below. Above the bin
-# limit the one-hot FLOPs (C x B per surface) stop being trivial next to
-# the intersect work (the per-triangle flux map's B ~ scene size would
-# rival the kernel itself); below the row floor dispatch overhead dominates
-# either way, so the formulation doesn't matter.
-_MXU_BIN_LIMIT = 32768
-_MXU_MIN_ROWS = 4096
-
-
-def _accum_mode(cfg: TraceConfig, n_bins: int, n_rows: int) -> str:
-    mode = getattr(cfg, "detector_accum", "auto")
-    if mode != "auto":
-        return mode
-    if (jax.default_backend() == "tpu" and n_bins <= _MXU_BIN_LIMIT
-            and n_rows >= _MXU_MIN_ROWS):
-        return "mxu"
-    return "scatter"
-
-
-def bincount_mxu(idx, weights, n_bins: int):
-    """(K, n_bins) f32 weighted bincounts of idx (C,) i32 in [0, n_bins)
-    for K weight rows (K, C) f32, via chunked one-hot matmuls on the MXU.
-
-    TPU has no native per-lane scatter: XLA lowers .at[].add to a
-    sort-based segmented reduce. Reformulating the bincount as
-    `weights @ one_hot(idx, B)` puts it on the MXU instead — measured
-    10.7x faster at 4M rays x 648 bins AND closer to the f64 sum than the
-    scatter (3.8e-7 vs 1.1e-4 rel; benchmarks/detector_bench.py ->
-    results/detector_epilogue_v5e_r4.jsonl). Chunking keeps the live
-    one-hot ~64 MB instead of C*B*4 bytes (10.9 GB at bench scale); all K
-    rows share each chunk's one-hot. The POWER side must stay f32
-    (CLAUDE.md: no bf16 truncation of geometry/power), hence
-    precision=HIGHEST."""
-    K, C = weights.shape
-    ch = max(128, min(65536, ((1 << 24) // max(n_bins, 1)) // 128 * 128))
-    ch = min(ch, C)
-    n_ch = -(-C // ch)
-    pad = n_ch * ch - C
-    if pad:
-        idx = jnp.concatenate([idx, jnp.zeros((pad,), idx.dtype)])
-        weights = jnp.concatenate(
-            [weights, jnp.zeros((K, pad), weights.dtype)], axis=1)
-    idx_c = idx.reshape(n_ch, ch)
-    if n_ch == 1:
-        oh = jax.nn.one_hot(idx_c[0], n_bins, dtype=jnp.float32)
-        return jnp.matmul(weights, oh,
-                          precision=jax.lax.Precision.HIGHEST)
-    w_c = weights.reshape(K, n_ch, ch).transpose(1, 0, 2)
-
-    def body(acc, xs):
-        f_c, ww = xs
-        oh = jax.nn.one_hot(f_c, n_bins, dtype=jnp.float32)
-        return acc + jnp.matmul(ww, oh,
-                                precision=jax.lax.Precision.HIGHEST), None
-
-    out, _ = jax.lax.scan(body, jnp.zeros((K, n_bins), jnp.float32),
-                          (idx_c, w_c))
-    return out
-
-
 def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
                                measured_power, det_id,
                                cfg: TraceConfig, opl=None,
@@ -1467,17 +1407,10 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
     ia = jnp.clip((az / (2.0 * np.pi) * n_az).astype(jnp.int32), 0, n_az - 1)
     ip = jnp.clip((pol / np.pi * n_pol).astype(jnp.int32), 0, n_pol - 1)
     flat = ia * n_pol + ip
-    C = measured_power.shape[0]
     did = jnp.clip(det_id, 0, det.per_detector.shape[0] - 1)
-    if _accum_mode(cfg, n_az * n_pol, C) == "mxu":
-        hist = det.hist + bincount_mxu(
-            flat, measured_power[None], n_az * n_pol)[0].reshape(n_az, n_pol)
-        per_det = det.per_detector + bincount_mxu(
-            did, measured_power[None], det.per_detector.shape[0])[0]
-    else:
-        hist = det.hist.reshape(-1).at[flat].add(
-            measured_power).reshape(n_az, n_pol)
-        per_det = det.per_detector.at[did].add(measured_power)
+    hist = det.hist.reshape(-1).at[flat].add(
+        measured_power).reshape(n_az, n_pol)
+    per_det = det.per_detector.at[did].add(measured_power)
 
     image = det.image
     image_amp = det.image_amp
@@ -1487,28 +1420,15 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
         nb = cfg.image_bins
         flat_img = image_flat_indices(hit_point, cfg)
         do_coh = cfg.coherent and opl is not None and wavelength is not None
-        if _accum_mode(cfg, nb * nb + 1, C) == "mxu":
-            # one one-hot (drop slot = column nb*nb, trimmed) shared by the
-            # power row and, when coherent, the re/im amplitude rows
-            rows = [measured_power]
-            if do_coh:
-                re, im = coherent_amplitudes(measured_power, opl, wavelength)
-                rows += [re, im]
-            acc = bincount_mxu(flat_img, jnp.stack(rows), nb * nb + 1)
-            image = image + acc[0, :-1].reshape(nb, nb)
-            if do_coh:
-                image_amp = image_amp + acc[1:3, :-1].reshape(
-                    image_amp.shape)
-        else:
-            image = jnp.pad(image.reshape(-1), (0, 1)).at[flat_img].add(
-                measured_power
-            )[:-1].reshape(nb, nb)
-            if do_coh:
-                re, im = coherent_amplitudes(measured_power, opl, wavelength)
-                pad_amp = jnp.pad(image_amp.reshape(2, -1), ((0, 0), (0, 1)))
-                pad_amp = pad_amp.at[0, flat_img].add(re)
-                pad_amp = pad_amp.at[1, flat_img].add(im)
-                image_amp = pad_amp[:, :-1].reshape(image_amp.shape)
+        image = jnp.pad(image.reshape(-1), (0, 1)).at[flat_img].add(
+            measured_power
+        )[:-1].reshape(nb, nb)
+        if do_coh:
+            re, im = coherent_amplitudes(measured_power, opl, wavelength)
+            pad_amp = jnp.pad(image_amp.reshape(2, -1), ((0, 0), (0, 1)))
+            pad_amp = pad_amp.at[0, flat_img].add(re)
+            pad_amp = pad_amp.at[1, flat_img].add(im)
+            image_amp = pad_amp[:, :-1].reshape(image_amp.shape)
 
     time_hist = det.time_hist
     if cfg.time_bins > 0 and opl is not None:
@@ -1520,23 +1440,15 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
         it = jnp.clip(((opl - cfg.opl_min) / span * nt).astype(jnp.int32),
                       0, nt - 1)
         flat_t = did * nt + it
-        n_tb = time_hist.shape[0] * nt
-        if _accum_mode(cfg, n_tb, C) == "mxu":
-            time_hist = time_hist + bincount_mxu(
-                flat_t, measured_power[None], n_tb)[0].reshape(
-                time_hist.shape)
-        else:
-            time_hist = time_hist.reshape(-1).at[flat_t].add(
-                measured_power).reshape(time_hist.shape)
+        time_hist = time_hist.reshape(-1).at[flat_t].add(
+            measured_power).reshape(time_hist.shape)
 
     tri_flux = det.tri_flux
     if cfg.flux_map and tri is not None and incident_power is not None:
         # per-facet incident-flux map: scatter the ARRIVING parent power at
         # the hit triangle (misses carry tri == -1 -> routed to the dropped
         # pad slot). tri_flux is sized to the scene's padded count by the
-        # engine, so valid hits always land in range. Always the scatter
-        # formulation: B ~ scene triangle count, so an MXU one-hot would
-        # cost C x T FLOPs — the same order as the intersect kernel itself.
+        # engine, so valid hits always land in range.
         T = tri_flux.shape[0]
         idx = jnp.where(tri >= 0, tri, T)
         tri_flux = jnp.pad(tri_flux, (0, 1)).at[idx].add(
@@ -1554,8 +1466,8 @@ def image_flat_indices(hit_point, cfg: TraceConfig):
 
     F = jnp.asarray(_frame(cfg.image_normal), jnp.float32)
     rel = hit_point - jnp.asarray(cfg.image_center, jnp.float32)
-    # elementwise dot, NOT a matmul: TPU's default matmul precision
-    # truncates geometry to bf16 (see CLAUDE.md)
+    # elementwise dot, NOT a matmul: a default-precision f32 matmul may
+    # run in TF32 and truncate geometry (see CLAUDE.md)
     x = jnp.sum(rel * F[0], axis=1)
     y = jnp.sum(rel * F[1], axis=1)
     nb = cfg.image_bins
@@ -1785,8 +1697,8 @@ def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
         culled=led.culled + culled,
     )
     # stream-compact measured rays to the array front with ONE fused
-    # (C, 14) cumsum scatter — separate scatters cost ~14 ms/bounce
-    # more at 524k rays on v5e. det_id rides along as f32 (exact below
+    # (C, 14) cumsum scatter instead of one scatter per field. det_id
+    # rides along as f32 (exact below
     # 2^24 detectors); device mode never pays any of this (aux is dead
     # code there and XLA removes it).
     C = rays.capacity

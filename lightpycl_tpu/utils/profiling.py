@@ -1,7 +1,7 @@
 """Profiling helpers.
 
 Reference parity: wall-clock timing + printed throughput around the trace
-loop (SURVEY.md §5.1). Adds the TPU-native option: a `jax.profiler` trace
+loop (SURVEY.md §5.1). Adds a `jax.profiler` trace
 context producing a Perfetto/XPlane dump for xprof.
 """
 

@@ -17,7 +17,7 @@ MODULES = [
     "lightpycl_tpu.tracer.step",
     "lightpycl_tpu.tracer.engine",
     "lightpycl_tpu.tracer.oracle",
-    "lightpycl_tpu.ops.intersect_pallas",
+    "lightpycl_tpu.ops.intersect_gpu",
     "lightpycl_tpu.parallel.sharding",
     "lightpycl_tpu.parallel.tri_sharding",
     "lightpycl_tpu.parallel.mesh2d",

@@ -2,13 +2,17 @@
 virtual CPU devices = one 8-device global mesh over Gloo collectives.
 
 This is the execution evidence for `parallel/distributed.py` (SURVEY.md
-§5.8 "jax.distributed process bootstrap; DCN for multi-host"; VERDICT r4
-missing #1): everything in parallel/sharding.py is plain SPMD over
-whatever mesh it's handed, so after `init_distributed()` the SAME engine
-call (`Tracer.trace(mode="multichip")`) runs across process boundaries —
+§5.8 "jax.distributed process bootstrap"): everything in
+parallel/sharding.py is plain SPMD over whatever mesh it's handed, so
+after `init_distributed()` the SAME engine call
+(`Tracer.trace(mode="multichip")`) runs across process boundaries —
 device_put scatters each process's addressable shards, `psum` rides the
-distributed runtime instead of ICI, and the psum'd detector state /
-ledger come back replicated to every process.
+distributed runtime, and the psum'd detector state / ledger come back
+replicated to every process.
+
+CPU-only on purpose: it is a virtual-device test. On a GPU machine two
+such processes would each try to reserve the card, so every process here
+runs with JAX_PLATFORMS=cpu.
 
 Modes:
   python scripts/multiprocess_trace.py            # orchestrator: spawns

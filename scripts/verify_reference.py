@@ -1,4 +1,4 @@
-"""SURVEY.md §8 re-anchoring, automated (VERDICT r3 missing #3).
+"""SURVEY.md §8 re-anchoring, automated.
 
 The reference mount `/root/reference/` was EMPTY at survey time (SURVEY.md
 §0), so every capability claim is anchored to BASELINE.json + recalled

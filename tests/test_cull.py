@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 import lightpycl_tpu as L
-from lightpycl_tpu.ops.intersect_pallas import intersect_pallas
+from lightpycl_tpu.ops.intersect_gpu import intersect_gpu
 from lightpycl_tpu.tracer.config import TraceConfig
 from lightpycl_tpu.tracer.scene import build_scene
 
@@ -25,8 +25,8 @@ def scenes():
 def check(o, d):
     scene, _ = build_scene(scenes())
     kw = dict(ray_block=128, tri_tile=256, interpret=True)
-    t0, i0 = map(np.asarray, intersect_pallas(scene, o, d, CFG, cull=False, **kw))
-    t1, i1 = map(np.asarray, intersect_pallas(scene, o, d, CFG, cull=True, **kw))
+    t0, i0 = map(np.asarray, intersect_gpu(scene, o, d, CFG, cull=False, **kw))
+    t1, i1 = map(np.asarray, intersect_gpu(scene, o, d, CFG, cull=True, **kw))
     assert (i0 == i1).all()
     both = np.isfinite(t0)
     assert np.array_equal(t0[both], t1[both])
@@ -56,8 +56,7 @@ class TestCullExactness:
 
     def test_cull_rate_positive_for_coherent(self, rng):
         # the mask actually culls something for a tight bundle
-        from lightpycl_tpu.ops.intersect_pallas import (
-            _cull_mask, pack_aabbs)
+        from lightpycl_tpu.ops.intersect_gpu import _cull_mask, pack_aabbs
 
         # fine sphere -> tiles are phi-wedges; an off-axis bundle provably
         # misses the wedges on the far side
@@ -65,12 +64,8 @@ class TestCullExactness:
         scene, _ = build_scene([fine.sphere(5.0, material="measure")])
         lo, hi = pack_aabbs(scene, 256)
         C = 256
-        o = np.zeros((C, 4), np.float32)
-        o[:, 0] = 2.0
-        o[:, 1] = 2.0
-        o[:, 2] = -10.0
-        o[:, 3] = 1.0
-        d = np.tile([0, 0, 1.0, 0.0], (C, 1)).astype(np.float32)
+        o = np.tile([2.0, 2.0, -10.0], (C, 1)).astype(np.float32)
+        d = np.tile([0, 0, 1.0], (C, 1)).astype(np.float32)
         mask = np.asarray(_cull_mask(jnp.asarray(o), jnp.asarray(d),
                                      lo, hi, 128, 1e3))
         assert mask.mean() < 0.8  # far-side wedges provably unreachable
@@ -106,13 +101,13 @@ class TestCullTrace:
 
 class TestCullGen2:
     def test_all_dead_block_culls_everything(self):
-        from lightpycl_tpu.ops.intersect_pallas import _cull_mask, pack_aabbs
+        from lightpycl_tpu.ops.intersect_gpu import _cull_mask, pack_aabbs
 
         scene, _ = build_scene(scenes())
         lo, hi = pack_aabbs(scene, 256)
         C = 256
-        o = np.zeros((C, 4), np.float32); o[:, 3] = 1.0
-        d = np.tile([0, 0, 1.0, 0.0], (C, 1)).astype(np.float32)
+        o = np.zeros((C, 3), np.float32)
+        d = np.tile([0, 0, 1.0], (C, 1)).astype(np.float32)
         alive = jnp.zeros((C,), bool)
         mask = np.asarray(_cull_mask(jnp.asarray(o), jnp.asarray(d),
                                      lo, hi, 128, 1e3, alive=alive))
@@ -128,9 +123,9 @@ class TestCullGen2:
         d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
         alive = jnp.asarray(rng.uniform(size=n) > 0.5)
         kw = dict(ray_block=128, tri_tile=256, interpret=True)
-        t0, i0 = map(np.asarray, intersect_pallas(
+        t0, i0 = map(np.asarray, intersect_gpu(
             scene, jnp.asarray(o), jnp.asarray(d), CFG, cull=False, **kw))
-        t1, i1 = map(np.asarray, intersect_pallas(
+        t1, i1 = map(np.asarray, intersect_gpu(
             scene, jnp.asarray(o), jnp.asarray(d), CFG, cull=True,
             alive=alive, **kw))
         live = np.asarray(alive)
@@ -178,7 +173,7 @@ class TestCullRecordPaths:
 class TestAutoCull:
     """cull=None (the default) resolves automatically in the engine:
     ON for coherent bundles (the mask can bite), OFF for isotropic
-    sources and mesh2d (VERDICT r3 item 2 — the 3x accelerator must
+    sources and mesh2d (the accelerator must
     earn its keep by default, bit-identically)."""
 
     def _els(self):
@@ -230,9 +225,8 @@ class TestAutoCull:
 
     def test_mesh2d_auto_enables_for_coherent(self):
         """r5: the 2-D mesh path gets the accelerator too — per-shard
-        masks over each shard's contiguous sorted-tile slice (VERDICT r4
-        next #8), so auto resolves by bundle coherence exactly like the
-        1-D paths."""
+        masks over each shard's contiguous sorted-tile slice, so auto
+        resolves by bundle coherence exactly like the 1-D paths."""
         from lightpycl_tpu.sources import CollimatedSource
         from lightpycl_tpu.tracer.engine import Tracer
 
@@ -244,93 +238,49 @@ class TestAutoCull:
                                      rays=L.RayBatch.from_arrays(o, d, p))
         assert cfg.cull is True
 
-    def test_smem_budget_ray_chunking(self):
-        """Big batches keep the tuned cull rung and slice the ray axis
-        so every chunk's bitpacked mask fits SMEM (cull_ray_chunk);
-        without this the kernel self-disables to brute while still
-        paying the Morton sort (measured below brute at 16M rays on
-        v5e). Chunked results must equal the unchunked/brute exactly
-        (the mask is conservative per chunk too)."""
-        from lightpycl_tpu.ops.intersect_pallas import (
-            _CULL_SMEM_BUDGET, cull_mask_fits, cull_ray_chunk,
-            intersect_pallas)
-
-        # prediction mirrors the kernel arithmetic: config-4 batches
-        # (4M rays x 137k tris) overflow the budget at the tuned
-        # (128, 1024) rung, so the chunk splits them; the bench bowl
-        # (512k x 73k) stays a single call
-        assert not cull_mask_fits(4_000_000, 137_304)
-        assert cull_ray_chunk(4_000_000, 137_304) < 4_000_000
-        assert cull_mask_fits(524_288, 73_344)
-        assert cull_ray_chunk(524_288, 73_344) >= 524_288
-        # every chunk's own mask fits the budget, at any scale
-        for n, t in ((4_000_000, 137_304), (2_000_000_000, 137_304),
-                     (16_000_000, 1_048_576)):
-            ch = cull_ray_chunk(n, t)
-            assert ch >= 128 and ch % 128 == 0
-            assert cull_mask_fits(ch, t)
-
-        # exactness through the chunked path: force a chunk smaller than
-        # the ray count via a tiny budget
-        import sys
-
-        # NOT `import ... as ipm`: the ops package re-exports the
-        # intersect_pallas FUNCTION, which shadows the submodule on
-        # attribute-style binding
-        ipm = sys.modules["lightpycl_tpu.ops.intersect_pallas"]
-
-        els = self._els()
+    def _bundle(self, n):
         from lightpycl_tpu.tracer.engine import Tracer
+
         tr = Tracer()
-        tr.set_elements(els, spatial_sort=True)
-        scene = tr.scene
+        tr.set_elements(self._els(), spatial_sort=True)
         rng = np.random.default_rng(11)
-        n = 1024
         o = jnp.asarray(rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32))
         o = o.at[:, 2].set(3.0)
         d = jnp.tile(jnp.asarray([[0.01, -0.02, -1.0]], jnp.float32),
                      (n, 1))
-        d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-        cfg = TraceConfig()
-        t0, i0 = intersect_pallas(scene, o, d, cfg, cull=False,
-                                  interpret=True)
-        old = ipm._CULL_SMEM_BUDGET
-        try:
-            ipm._CULL_SMEM_BUDGET = 4  # one 128-ray block per chunk
-            assert cull_ray_chunk(n, scene.num_triangles_padded) == 128
-            t1, i1 = intersect_pallas(scene, o, d, cfg, cull=True,
-                                      interpret=True)
-        finally:
-            ipm._CULL_SMEM_BUDGET = old
-        assert old == _CULL_SMEM_BUDGET
+        return tr.scene, o, d / jnp.linalg.norm(d, axis=1, keepdims=True)
+
+    @pytest.mark.parametrize("R,K,cull_tile", [(64, 16, 16), (32, 8, 16),
+                                               (128, 8, 8)])
+    def test_multiword_mask_rows_exact(self, R, K, cull_tile):
+        """Mask rows of several 32-bit words (more than 32 cull tiles)
+        must still match brute force exactly."""
+        scene, o, d = self._bundle(512)
+        n_tiles = -(-scene.num_triangles_padded // cull_tile)
+        assert n_tiles > 32  # at least two words per mask row
+        kw = dict(ray_block=R, tri_tile=K, cull_tile=cull_tile,
+                  interpret=True)
+        t0, i0 = intersect_gpu(scene, o, d, CFG, cull=False, **kw)
+        t1, i1 = intersect_gpu(scene, o, d, CFG, cull=True, **kw)
         np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
         np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
 
-    def test_escalated_block_still_exact(self, rng):
-        """A forced R=256/512 cull intersect must match brute exactly
-        (the mask is conservative at ANY block granularity)."""
-        from lightpycl_tpu.ops.intersect_pallas import intersect_pallas
+    def test_all_zero_mask_row_misses(self):
+        """A ray block whose mask row is all zeros (here: no live rays)
+        skips every tile, so all its rays miss."""
+        from lightpycl_tpu.ops.intersect_gpu import pack_mask
 
-        els = self._els()
-        from lightpycl_tpu.tracer.engine import Tracer
-        tr = Tracer()
-        tr.set_elements(els, spatial_sort=True)
-        scene = tr.scene
-        n = 2048
-        o = jnp.asarray(
-            rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32))
-        o = o.at[:, 2].set(3.0)
-        d = jnp.tile(jnp.asarray([[0.01, -0.02, -1.0]], jnp.float32),
-                     (n, 1))
-        d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-        cfg = TraceConfig()
-        t0, i0 = intersect_pallas(scene, o, d, cfg, cull=False,
-                                  interpret=True)
-        for R in (256, 512):
-            t1, i1 = intersect_pallas(scene, o, d, cfg, cull=True,
-                                      ray_block=R, interpret=True)
-            np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-            np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
+        scene, o, d = self._bundle(256)
+        alive = jnp.zeros((256,), bool).at[128:].set(True)
+        t, i = intersect_gpu(scene, o, d, CFG, cull=True, alive=alive,
+                             ray_block=128, tri_tile=32, cull_tile=64,
+                             interpret=True)
+        t, i = np.asarray(t), np.asarray(i)
+        assert (i[:128] == -1).all() and np.isinf(t[:128]).all()
+        assert (i[128:] >= 0).all()
+        words = np.asarray(pack_mask(jnp.asarray([[1] * 40, [0] * 40])))
+        assert words.shape == (2, 2) and (words[1] == 0).all()
+        assert words[0, 0] == -1 and words[0, 1] == 0xFF
 
     def test_batched_auto_enables_and_conserves(self):
         from lightpycl_tpu.sources import CollimatedSource
@@ -350,7 +300,7 @@ class TestAutoCull:
 
 
 class TestCullReductionOrder:
-    """Pin the exactness CONTRACT precisely (VERDICT r4 weak #3): per-pair
+    """Pin the exactness CONTRACT precisely: per-pair
     hit results (t, tri index) are bit-identical with the cull on — that
     is what 'conservative mask' guarantees — while REDUCED sums (detected
     power, histogram bins) may differ by f32 summation order after the
@@ -381,9 +331,9 @@ class TestCullReductionOrder:
         d = np.asarray(d, np.float32)
         scene, _ = build_scene(els)
         kw = dict(ray_block=128, tri_tile=256, interpret=True)
-        t0, i0 = map(np.asarray, intersect_pallas(scene, o[:256], d[:256],
+        t0, i0 = map(np.asarray, intersect_gpu(scene, o[:256], d[:256],
                                                   CFG, cull=False, **kw))
-        t1, i1 = map(np.asarray, intersect_pallas(scene, o[:256], d[:256],
+        t1, i1 = map(np.asarray, intersect_gpu(scene, o[:256], d[:256],
                                                   CFG, cull=True, **kw))
         np.testing.assert_array_equal(i0, i1)
         both = i0 >= 0

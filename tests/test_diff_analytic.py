@@ -3,7 +3,7 @@ quadric_intersect_diff): gradients of curvature/conic/thickness with no
 tessellation noise.
 
 The headline anchors convert two documented mesh-path limitations
-(docs/ROADMAP.md: Coddington best-form is tessellation-limited;
+(ROADMAP.md: Coddington best-form is tessellation-limited;
 tests/test_diff.py recovers the stigmatic conic only to +-0.35 with a
 6e-3 facet spot floor) into exact results: the stigmatic singlet's loss
 landscape minimizes AT k = -n^2 with a ~1e-7 floor, and the best-form
@@ -111,7 +111,7 @@ class TestBestForm:
         shape factor q = (c1+c2)/(c1-c2) bracketing the thin-lens optimum
         q* = 2(n^2-1)/(n+2) ~ 0.714 (thick-lens + fifth-order terms shift
         it within the basin). The meshed version cannot resolve this
-        (docs/ROADMAP.md negative result) — facet blur exceeds the whole
+        (ROADMAP.md negative result) — facet blur exceeds the whole
         q-contrast."""
         n, X = N_GLASS, 2.0
         lf = diff.make_analytic_spot_loss(ior=n, thickness=0.05,

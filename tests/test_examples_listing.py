@@ -1,8 +1,8 @@
 """The example sweep must not rot: every example_*.py on disk needs a
 SMALL entry in examples/run_all.py (its reduced-size env), or the sweep
-used to silently skip it while still reporting "all green" (VERDICT r3
-weak #7 — run_all now hard-fails on an unlisted file; this test makes
-the mismatch fail at pytest time too)."""
+used to silently skip it while still reporting "all green" (run_all now
+hard-fails on an unlisted file; this test makes the mismatch fail at
+pytest time too)."""
 
 import importlib.util
 import os

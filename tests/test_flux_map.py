@@ -150,9 +150,9 @@ class TestFluxMap:
                      mode="device")
 
     def test_spectral_composes(self):
-        """flux_map now composes with spectral traces (VERDICT r4 missing
-        #3): the per-facet map is wavelength-integrated, so a spectral
-        trace's flux map must total the emitted power exactly like the
+        """flux_map now composes with spectral traces: the per-facet map
+        is wavelength-integrated, so a spectral trace's flux map must
+        total the emitted power exactly like the
         scalar one — on BOTH execution methods — with the per-lambda
         ledger still closing per column."""
         ls = light_source(center=(0, 0, 0), direction=(0, 0, 1), power=1.0,

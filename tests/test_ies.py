@@ -267,8 +267,8 @@ class TestIlluminance:
 
 class TestPhotometricTypeGuard:
     """Type B/A webs aim their angle grids along different axes; reading
-    one as Type C silently rotates the distribution (VERDICT r4 missing
-    #4) — directivity/source construction must refuse non-Type-C."""
+    one as Type C silently rotates the distribution —
+    directivity/source construction must refuse non-Type-C."""
 
     def _type_b(self):
         vdeg = np.linspace(0, 90, 10)

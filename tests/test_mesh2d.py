@@ -166,7 +166,7 @@ def test_mesh2d_dual_order_grating_matches_single_device():
 
 
 def test_mesh2d_cull_exact_parity():
-    """r5 (VERDICT r4 next #8): the cull accelerator reaches the 2-D mesh
+    """The cull accelerator reaches the 2-D mesh
     path. Each triangle shard is a contiguous slice of the spatially-
     sorted tile stream, so per-shard masks are conservative locally; the
     Morton resort uses a pmin/pmax-global quantization box so every TRI

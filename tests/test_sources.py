@@ -151,7 +151,7 @@ class TestHexapolar:
 
     def test_divergence_on_device_unit_norm(self):
         """device-side divergent directions must be unit vectors (the
-        elementwise frame construction; a bf16-truncated matmul here
+        elementwise frame construction; a TF32-truncated matmul here
         would break unit norm and leak power)."""
         cs = CollimatedSource(direction=(0, 1, 1), diameter=0.5,
                               ray_count=4096, divergence=0.2, seed=3)

@@ -170,7 +170,7 @@ class TestTimeHist:
 
 
 class TestSpectralToF:
-    """time_bins composes with spectral traces (VERDICT r4 missing #3):
+    """time_bins composes with spectral traces:
     the ToF histogram is wavelength-integrated, deposited inside both
     spectral execution methods with the per-lambda ledger intact."""
 

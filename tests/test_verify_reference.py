@@ -1,5 +1,5 @@
 """scripts/verify_reference.py — the automated SURVEY.md §8 re-anchor
-check (VERDICT r3 missing #3). The real mount is empty, so the populated
+check. The real mount is empty, so the populated
 path is exercised against synthetic reference trees."""
 
 import importlib.util
